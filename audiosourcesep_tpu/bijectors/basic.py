@@ -70,7 +70,7 @@ class Invertible1x1Conv(Bijector):
     ``W = P @ L @ (U + diag(sign_s * exp(log_s)))`` with P and sign_s fixed,
     L strictly-lower + I, U strictly-upper (reference
     flow_tfp_bijectors.py:256-322). The 1x1 conv is a single channel matmul
-    ``y = x @ W`` — one MXU contraction instead of a conv kernel. The inverse
+    ``y = x @ W`` — one matrix product instead of a conv kernel. The inverse
     uses triangular solves (no explicit ``inv`` as in the reference :308-317)
     for stability.
 

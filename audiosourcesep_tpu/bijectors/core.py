@@ -1,4 +1,4 @@
-"""Core bijector protocol — pure-functional flows for TPU.
+"""Core bijector protocol — pure-functional flows under ``jax.jit``.
 
 Design
 ------

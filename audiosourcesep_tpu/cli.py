@@ -35,10 +35,10 @@ def maybe_init_multihost(args) -> None:
     """Initialise multi-host JAX when ``--multihost`` is set.
 
     Must run before any other JAX API call in the process. Extends the
-    reference (single-host ``MirroredStrategy`` only, SURVEY.md §2) to TPU
-    pod slices; on Cloud TPU the coordinator/process arguments auto-detect
-    from the environment, elsewhere (the 2-process CPU test cluster) pass
-    them explicitly.
+    reference (single-host ``MirroredStrategy`` only, SURVEY.md §2) to
+    several hosts, one process each. The coordinator address, process count
+    and process index are passed explicitly: nothing in the environment
+    supplies them.
     """
     if not getattr(args, "multihost", False):
         return
@@ -55,9 +55,10 @@ def maybe_init_multihost(args) -> None:
 
 def add_multihost_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--multihost", action="store_true",
-                        help="initialise jax.distributed (TPU pod slices; "
-                             "auto-detects on Cloud TPU)")
-    parser.add_argument("--coordinator_address", type=str, default=None)
+                        help="initialise jax.distributed, one process per "
+                             "host; needs the three flags below")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of process 0's coordinator")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
 

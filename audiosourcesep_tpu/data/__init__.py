@@ -6,6 +6,7 @@ from .loaders import (ArrayDataset, load_wav, load_multiple_wav,
                       load_melspec_ds, load_toydata, get_mixture_toydata,
                       get_song_extract, save_mel_spectrograms, load_spec,
                       load_spec_tf)
+from .synth import synth_stems, write_song
 
 __all__ = [
     "read_wav", "write_wav", "resample", "load_audio",
@@ -14,4 +15,5 @@ __all__ = [
     "ArrayDataset", "load_wav", "load_multiple_wav", "load_melspec_ds",
     "load_toydata", "get_mixture_toydata", "get_song_extract",
     "save_mel_spectrograms", "load_spec", "load_spec_tf",
+    "synth_stems", "write_song",
 ]

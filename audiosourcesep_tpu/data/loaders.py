@@ -64,7 +64,7 @@ class ArrayDataset:
     """Shuffled, batched iteration over a numpy array (drop_remainder by
     default, like the reference's training batches; ``drop_remainder=False``
     keeps the final partial batch — the reference's eval batching), with
-    optional per-host sharding for multi-host TPU slices."""
+    optional per-host sharding for multi-host runs."""
 
     def __init__(self, data: np.ndarray, batch_size: Optional[int],
                  shuffle: bool = True, seed: int = 0,
@@ -272,13 +272,8 @@ def get_song_extract(mix_path: str, piano_path: str, violin_path: str,
     raw_audio = [w.reshape(-1) for w in windows]
 
     all_w = jnp.asarray(np.stack(windows))          # [3, n, L]
-    stft_all = stft(all_w, n_fft=n_fft, hop_length=hop_length)
-    # transfer real/imag separately (some TPU runtimes lack complex
-    # device->host transfers)
-    stft_mix = stft_all[0]
-    stft_mixture = (np.asarray(jnp.real(stft_mix), np.float32)
-                    + 1j * np.asarray(jnp.imag(stft_mix), np.float32)
-                    ).astype(np.complex64)          # [n, bins, F]
+    stft_mixture = np.asarray(stft(all_w[0], n_fft=n_fft,
+                                   hop_length=hop_length))  # [n, bins, F]
 
     if use_dB:
         # match the reference exactly (data_loader.py:161-164): UNCLIPPED

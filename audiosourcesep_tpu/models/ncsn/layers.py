@@ -29,10 +29,8 @@ def _norm2dplus(x, scale, alpha, bias, eps_in=1e-3, eps_means=1e-5):
     Statistics come from ONE pass over x (sum and sum-of-squares fuse into
     a single f32-accumulating reduction loop; ``jnp.var``'s two-pass
     formulation reads x twice more), and the whole normalisation collapses
-    to one multiply-add per element: ``x * a + b``. Measured on v5e this
-    beats both the naive 3-pass lowering and a Pallas whole-sample kernel
-    (a ``pallas_call`` is a fusion barrier — XLA's conv-epilogue fusion
-    around the norm wins; see docs/DESIGN.md "Pallas").
+    to one multiply-add per element: ``x * a + b``, which XLA fuses into
+    the surrounding conv epilogues.
     """
     xf = x.astype(jnp.float32)
     s1 = jnp.mean(xf, axis=(1, 2), keepdims=True)             # [N,1,1,C]

@@ -43,9 +43,9 @@ class RefineNetDilated:
         self.sigmas = None if sigmas is None else jnp.asarray(sigmas)
         self.logit_transform = logit_transform
         self.deeper = deeper
-        # compute_dtype=bfloat16 runs every conv on the MXU in bf16 (norm
-        # statistics stay f32, output returns f32) -- the TPU-native fast
-        # path for the Langevin/BASIS loops; None keeps the input dtype
+        # compute_dtype=bfloat16 runs every conv in bf16 (norm statistics
+        # stay f32, output returns f32) -- the fast path for the
+        # Langevin/BASIS loops; None keeps the input dtype
         self.compute_dtype = compute_dtype
         self.act = jax.nn.elu
         nc = num_classes

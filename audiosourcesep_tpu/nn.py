@@ -47,22 +47,6 @@ def normal_init(key: Array, shape: Tuple[int, ...], stddev: float = 0.02,
 
 _DIMSPEC = ("NHWC", "HWIO", "NHWC")
 
-# When enabled (and running on TPU), eligible 3x3 stride-1 convs route
-# through the fused Winograd Pallas kernel (ops/winograd.py) — 2.25x
-# fewer MXU FLOPs on the separation hot loop. Toggle BEFORE the first
-# jitted trace of the model: traces are cached, so flipping it later
-# does not retrace already-compiled programs.
-_WINOGRAD = False
-
-
-def set_winograd(enable: bool) -> None:
-    global _WINOGRAD
-    _WINOGRAD = bool(enable)
-
-
-def winograd_enabled() -> bool:
-    return _WINOGRAD
-
 
 def conv2d_init(key: Array, in_ch: int, out_ch: int, kernel_size: int = 3,
                 use_bias: bool = True, zero_init: bool = False,
@@ -79,17 +63,6 @@ def conv2d_init(key: Array, in_ch: int, out_ch: int, kernel_size: int = 3,
 def conv2d(params: dict, x: Array, stride: int = 1, dilation: int = 1,
            padding: str = "SAME") -> Array:
     kernel = params["kernel"]
-    if _WINOGRAD and padding == "SAME" and jax.default_backend() == "tpu":
-        # dilated convs are deliberately NOT routed: XLA's dilated conv
-        # lowering runs at 175-200 TF/s on the cascade's shapes and the
-        # phase-split path loses 2-3x (benchmarks/profile_winograd.py)
-        from .ops.winograd import winograd_conv2d, winograd_eligible
-        if winograd_eligible(x.shape, kernel.shape, stride, dilation,
-                             itemsize=jnp.dtype(x.dtype).itemsize):
-            y = winograd_conv2d(x, kernel)
-            if "bias" in params:
-                y = y + params["bias"].astype(x.dtype)
-            return y
     y = jax.lax.conv_general_dilated(
         x, kernel.astype(x.dtype),
         window_strides=(stride, stride),

@@ -6,8 +6,7 @@ from .spectrogram import (melspectrogram, melspectrogram_tf_signal,
                           db_limits_to_power)
 from .inversion import (mel_to_stft, griffin_lim, mel_to_audio,
                         single_channel_wiener_filter, phase_reuse,
-                        invert_melspec_reuse_phase,
-                        as_device_complex)
+                        invert_melspec_reuse_phase)
 
 __all__ = [
     "stft", "istft", "hann_window", "frame_signal",
@@ -18,5 +17,4 @@ __all__ = [
     "mel_to_stft", "griffin_lim", "mel_to_audio",
     "single_channel_wiener_filter", "phase_reuse",
     "invert_melspec_reuse_phase",
-    "as_device_complex",
 ]

@@ -2,8 +2,8 @@
 
 The reference inverts on the host with librosa (melspec_inversion_basis.py:
 21-119, run_basis_sep.py:99-103); here every step is a jitted, batched XLA
-computation: NNLS is an accelerated projected-gradient solve (matmuls on the
-MXU), Griffin-Lim a ``lax.scan`` over STFT/iSTFT round trips.
+computation: NNLS is an accelerated projected-gradient solve (batched
+matmuls), Griffin-Lim a ``lax.scan`` over STFT/iSTFT round trips.
 """
 
 from __future__ import annotations
@@ -105,19 +105,6 @@ def mel_to_audio(melspec: Array, key: Array, sr: int = 16000,
     mag = mel_to_stft(melspec, sr=sr, n_fft=n_fft, fmin=fmin, fmax=fmax)
     return griffin_lim(mag, key, n_fft=n_fft, hop_length=hop_length,
                        n_iter=n_iter, length=length)
-
-
-def as_device_complex(x: np.ndarray) -> Array:
-    """Transfer a host complex array to the default device as split
-    real/imag (this TPU runtime rejects complex host<->device transfers;
-    complex *compute* on device is fine — the recombination below happens
-    on device)."""
-    x = np.asarray(x)
-    if not np.iscomplexobj(x):
-        return jnp.asarray(x)
-    re = jnp.asarray(np.ascontiguousarray(x.real, dtype=np.float32))
-    im = jnp.asarray(np.ascontiguousarray(x.imag, dtype=np.float32))
-    return jax.lax.complex(re, im)
 
 
 def single_channel_wiener_filter(psd_sources: Array,

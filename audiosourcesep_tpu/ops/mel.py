@@ -3,7 +3,7 @@
 The reference uses two mel paths: librosa's (slaney scale + slaney norm,
 datasets/preprocessing.py:82-92) and ``tf.signal.linear_to_mel_weight_matrix``
 (HTK scale, no norm, :110-125). Both are reproduced here as constant numpy
-matrices applied with a single MXU matmul.
+matrices applied with a single matmul.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """Device mesh + sharding helpers (SPMD data parallelism).
 
 The reference's only parallelism is ``tf.distribute.MirroredStrategy`` data
-parallelism with NCCL all-reduce (SURVEY.md §2); the TPU-native equivalent
-is a 1-D ``jax.sharding.Mesh`` over all chips with batch-sharded data and
-replicated params — XLA inserts the gradient ``psum`` over ICI at compile
-time. Models here are <100M params, so DP is the whole story; the helpers
-keep an explicit mesh so multi-host slices extend naturally.
+parallelism with NCCL all-reduce (SURVEY.md §2); the equivalent here is a
+1-D ``jax.sharding.Mesh`` over all devices with batch-sharded data and
+replicated params — XLA inserts the gradient ``psum`` at compile time and
+hands it to NCCL on GPUs. Models here are <100M params, so DP is the whole
+story; the helpers keep an explicit mesh so multi-host runs extend
+naturally. Meshes are built from ``jax.devices()`` alone: every GPU of a
+host reaches every other over NVLink at the same rate, so the layout
+follows the algorithm, not a torus.
 """
 
 from __future__ import annotations
@@ -30,12 +33,10 @@ def make_source_mesh(n_sources: int = 2,
                      devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
     """2-D mesh ``(source, data)`` for source-sharded BASIS separation.
 
-    Round-4 scaling measurement (docs/DESIGN.md): pure frame sharding
-    collapses per-chip MFU once the per-apply conv batch drops below ~8
-    (v5e-8 = 4 frames/chip = MFU 0.251 vs 0.618 at 8). Sharding the
-    SOURCE axis too keeps every chip at one model x twice the frames —
-    the efficient operating point — at the cost of one tiny per-step
-    all-reduce for the mixing softmax (the iterate is ~KBs over ICI).
+    Pure frame sharding shrinks the per-apply conv batch as devices are
+    added. Sharding the SOURCE axis too keeps every device at one model x
+    twice the frames, at the cost of one small per-step all-reduce for the
+    mixing softmax (the iterate is ~KBs).
     """
     devices = list(devices) if devices is not None else jax.devices()
     n = len(devices)
@@ -86,9 +87,9 @@ def put_global_batch(batch: Any, mesh: Optional[Mesh],
                      batch_axis: int = 0) -> Any:
     """Device-put one batch with the batch axis sharded over ``mesh``.
 
-    Single-process: a plain sharded ``device_put``. Multi-process (TPU pod
-    slices / the 2-process CPU test cluster): ``batch`` is this host's local
-    shard of the global batch (the loaders shard per host via
+    Single-process: a plain sharded ``device_put``. Multi-process (one
+    process per host / the 2-process CPU test cluster): ``batch`` is this
+    host's local shard of the global batch (the loaders shard per host via
     ``num_hosts``/``host_id``), assembled into one global array with
     ``host_local_array_to_global_array`` — the analog of the reference's
     ``strategy.experimental_distribute_dataset`` (data_loader.py:104-107),
@@ -130,19 +131,24 @@ def make_mesh_for_batch(batch_size: int,
     return make_mesh(jax.devices()[:n], axis_name)
 
 
-def init_distributed(coordinator_address: Optional[str] = None,
-                     num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
-    """Initialise multi-host JAX (TPU pods / multi-slice).
+def init_distributed(coordinator_address: Optional[str],
+                     num_processes: Optional[int],
+                     process_id: Optional[int]) -> None:
+    """Initialise multi-process JAX (one process per host).
 
-    Thin wrapper over ``jax.distributed.initialize``; on Cloud TPU the
-    arguments are auto-detected from the environment. Call before any other
-    JAX API in each host process. (The reference is single-host only —
-    SURVEY.md §2 "Multi-host / elastic: Absent"; this extends it.)
+    Thin wrapper over ``jax.distributed.initialize``. Nothing in a plain
+    GPU cluster tells JAX where its coordinator is, so the coordinator
+    address (``host:port``), the process count and this process's index
+    are passed explicitly. Call before any other JAX API in each process.
+    (The reference is single-host only — SURVEY.md §2 "Multi-host /
+    elastic: Absent"; this extends it.)
     """
+    if not coordinator_address or num_processes is None \
+            or process_id is None:
+        raise ValueError(
+            "multi-process JAX needs --coordinator_address host:port, "
+            "--num_processes and --process_id")
     import jax.distributed
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(coordinator_address=coordinator_address,
-                      num_processes=num_processes, process_id=process_id)
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)

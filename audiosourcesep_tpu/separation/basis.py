@@ -5,9 +5,8 @@ eager Python loop with two sequential score-model calls per step and (for
 Glow priors) checkpoint restores from disk between noise levels
 (run_basis_sep.py:228-234). Here:
 
-* both sources (and both models) are *stacked*: one vmapped score evaluation
-  per step covers model1(x1) and model2(x2) simultaneously — twice the batch
-  on the MXU, half the launches;
+* both sources (and both models) are *stacked*: one score evaluation per
+  step covers model1(x1) and model2(x2) inside one compiled program;
 * the (noise level x step) loops are a double ``lax.scan`` compiled once;
 * per-level Glow parameters are pre-stacked pytrees indexed on-device, so no
   host I/O ever interrupts the loop (SURVEY.md §7 stage 6);
@@ -78,10 +77,10 @@ def ncsn_score_fn(model_apply: Callable, n_sources: int = 2,
     """Parameter-explicit stacked NCSN score:
     ``score(params, x [K,N,...], sigma_idx, level) -> [K,N,...]``.
 
-    ``mode='sequential'`` unrolls the K per-source applies (measured ~7%%
-    faster than ``'vmap'`` on v5e at the benchmark shape — XLA lowers
-    batched-weight convs slightly worse than K plain convs; both fuse into
-    the same per-level program either way).
+    ``mode='sequential'`` unrolls the K per-source applies as K plain conv
+    stacks; ``'vmap'`` evaluates them as one batched-weight program. Both
+    fuse into the same per-level program; the default is the plain-conv
+    form.
     """
     if mode == "vmap":
         vapply = jax.vmap(model_apply, in_axes=(0, 0, None))
@@ -103,23 +102,21 @@ def ncsn_score_fn(model_apply: Callable, n_sources: int = 2,
 
 
 def source_sharded_ncsn_score(model_apply: Callable, mesh) -> Callable:
-    """NCSN score over a 2-D ``(source, data)`` mesh: each chip holds ONE
-    model's params and evaluates it on its frame shard as a PLAIN conv
+    """NCSN score over a 2-D ``(source, data)`` mesh: each device holds
+    ONE model's params and evaluates it on its frame shard as a PLAIN conv
     stack at the full local batch.
 
-    Motivation (round-4 scaling measurement, docs/DESIGN.md): frame-only
-    sharding starves the per-apply conv batch on large pods (v5e-8 = 4
-    frames/chip drops chip MFU 0.674 -> 0.251). With the source axis also
-    sharded, a v5e-8 runs 1 model x ~8 frames per chip — the measured
-    efficient point — and the only cross-chip traffic left in the anneal
-    is the mixing softmax/logsumexp over the K=2 source axis (a ~KB-scale
+    Frame-only sharding shrinks the per-apply conv batch as devices are
+    added; with the source axis also sharded, each device runs 1 model at
+    twice the frames, and the only cross-device traffic left in the anneal
+    is the mixing softmax/logsumexp over the K=2 source axis (a KB-scale
     all-reduce per Langevin step, inserted by XLA from the global
-    ``mixing_process`` math, riding ICI).
+    ``mixing_process`` math).
 
-    ``shard_map`` (not GSPMD hints) so the per-chip lowering is
+    ``shard_map`` (not GSPMD hints) so the per-device lowering is
     guaranteed: the local eval is an ordinary un-grouped conv program —
-    the partitioner cannot fall back to the grouped/batched-weight conv
-    lowerings that measured 25-50%% slower (benchmarks/profile_grouped.py).
+    the partitioner cannot fall back to a grouped/batched-weight conv
+    lowering.
 
     Use with params device_put by :func:`parallel.params_by_source` and
     ``x`` by :func:`parallel.source_sharding`.
@@ -159,20 +156,20 @@ def source_sharded_ncsn_score(model_apply: Callable, mesh) -> Callable:
 
 
 def source_sharded_glow_score(log_prob_fn: Callable, mesh) -> Callable:
-    """Glow score over a 2-D ``(source, data)`` mesh: each chip holds ONE
-    source's per-noise-level param stack and differentiates its own flow
-    on its frame shard.
+    """Glow score over a 2-D ``(source, data)`` mesh: each device holds
+    ONE source's per-noise-level param stack and differentiates its own
+    flow on its frame shard.
 
     Takes the SOURCE-major stack ``[K, L_sigma, ...]`` (vs
     :func:`glow_score_fn`'s level-major ``[L_sigma, K, ...]``) so each
     source's whole sigma chain is one contiguous leading-axis slice on its
-    chip row: sharding it halves per-chip prior HBM (the sigma-stacked
-    512-filter production flow is ~2.1 GB replicated, docs/DESIGN.md) and
+    device row: sharding it halves per-device prior memory (the
+    sigma-stacked 512-filter production flow is ~2.1 GB replicated) and
     the local eval lowers as one flow's PLAIN grad program — no
     batched-weight fallbacks, same rationale as
-    :func:`source_sharded_ncsn_score`. The only cross-chip traffic left in
-    the anneal is the mixing logsumexp/softmax all-reduce XLA inserts from
-    the global mixing math.
+    :func:`source_sharded_ncsn_score`. The only cross-device traffic left
+    in the anneal is the mixing logsumexp/softmax all-reduce XLA inserts
+    from the global mixing math.
 
     Use with params device_put by :func:`parallel.params_by_source` and
     ``x`` by :func:`parallel.source_sharding`.
@@ -199,7 +196,8 @@ def source_sharded_glow_score(log_prob_fn: Callable, mesh) -> Callable:
     def score(params, x: Array, sigma_idx: Array, level: Array) -> Array:
         del sigma_idx
         # same invariant as source_sharded_ncsn_score: local_eval indexes
-        # p[0]/x[0], valid only when every chip row holds exactly one source
+        # p[0]/x[0], valid only when every device row holds exactly one
+        # source
         lead = {leaf.shape[0] for leaf in jax.tree_util.tree_leaves(params)}
         if lead != {n_mesh_sources} or x.shape[0] != n_mesh_sources:
             raise ValueError(
@@ -220,13 +218,11 @@ def glow_score_fn(log_prob_fn: Callable,
     ``frame_chunk`` bounds the VJP working set: ``grad_x log_prob``
     through the flow stores every coupling-net activation, which at the
     production separation scale (512 filters, L=3/K=40, 28 frames x 2
-    sources) is ~18 GiB of fp32 residuals — more than a v5e chip's HBM
-    (measured: benchmarks/probe_glow_sep_memory.py; per-step
-    ``jax.checkpoint`` does NOT recover it, XLA schedules the
-    rematerialised forwards eagerly). Chunking evaluates the grad over
+    sources) is ~18 GiB of fp32 residuals (XLA's CPU memory analysis,
+    benchmarks/probe_glow_sep_memory.py). Chunking evaluates the grad over
     ``frame_chunk`` frames at a time under ``lax.map`` — sequential by
     construction, so peak residency scales with the chunk, while the
-    params (the HBM-heavy side) stay resident across chunks. Frames are
+    params stay resident across chunks. Frames are
     independent in BASIS, so the result is exact.
     """
     def single_score(params, x):
@@ -250,6 +246,36 @@ def glow_score_fn(log_prob_fn: Callable,
     return score
 
 
+def make_level_program(score_fn: Callable, sigmas, config: BasisConfig,
+                       n_frames: int) -> Callable:
+    """One noise level of :func:`basis_separate_per_level` as a jitted
+    program ``(params, x, mixed, level, key) -> x`` running ``config.T``
+    Langevin steps over ``n_frames`` frames; ``x`` is donated. Exposed so
+    callers can ``.lower(...).compile()`` it for a memory analysis."""
+    g, grad_g = mixing_process(config.data_type, config.scale)
+    sigmas_arr = jnp.asarray(sigmas)
+
+    @functools.partial(jax.jit, donate_argnums=(1,))
+    def run_level(params, x, mixed, level, key):
+        sigma = sigmas_arr[level]
+        eta = config.delta * jnp.square(sigma / sigmas_arr[-1])
+        lam = 1.0 / jnp.square(sigma)
+        labels = jnp.full((n_frames,), level, jnp.int32)
+
+        def step_body(x, k):
+            noise = (jax.random.normal(k, x.shape, x.dtype)
+                     * jnp.sqrt(2.0 * eta).astype(x.dtype))
+            scores = _clip_scores(score_fn(params, x, labels, level), sigma,
+                                  config.score_clip)
+            recon = (lam.astype(x.dtype) * grad_g(x) * (mixed - g(x)))
+            return x + eta.astype(x.dtype) * (scores + recon) + noise, None
+
+        x, _ = jax.lax.scan(step_body, x, jax.random.split(key, config.T))
+        return x
+
+    return run_level
+
+
 def basis_separate_per_level(score_fn: Callable, params, mixed: Array,
                              x_init: Array, sigmas, rng: Array,
                              config: BasisConfig = BasisConfig(),
@@ -265,32 +291,11 @@ def basis_separate_per_level(score_fn: Callable, params, mixed: Array,
     explicitly (``(params, x, sigma_idx, level) -> scores``) so model
     weights are jit arguments, not baked-in constants.
     """
-    g, grad_g = mixing_process(config.data_type, config.scale)
-    sigmas_arr = jnp.asarray(sigmas)
-    L = sigmas_arr.shape[0]
-    N = x_init.shape[1]
-
-    @functools.partial(jax.jit, donate_argnums=(1,))
-    def run_level(params, x, mixed, level, key):
-        sigma = sigmas_arr[level]
-        eta = config.delta * jnp.square(sigma / sigmas_arr[-1])
-        lam = 1.0 / jnp.square(sigma)
-        labels = jnp.full((N,), level, jnp.int32)
-
-        def step_body(x, k):
-            noise = (jax.random.normal(k, x.shape, x.dtype)
-                     * jnp.sqrt(2.0 * eta).astype(x.dtype))
-            scores = _clip_scores(score_fn(params, x, labels, level), sigma,
-                                  config.score_clip)
-            recon = (lam.astype(x.dtype) * grad_g(x) * (mixed - g(x)))
-            return x + eta.astype(x.dtype) * (scores + recon) + noise, None
-
-        x, _ = jax.lax.scan(step_body, x, jax.random.split(key, config.T))
-        return x
-
+    L = len(sigmas)
+    run_level = make_level_program(score_fn, sigmas, config, x_init.shape[1])
     keys = jax.random.split(rng, L)
-    # x is always donated into run_level (the HBM win: the scan reuses the
-    # iterate buffers). Trajectory snapshots are cheap device-side copies
+    # x is always donated into run_level (the scan reuses the iterate
+    # buffers). Trajectory snapshots are cheap device-side copies
     # (~MBs) taken BEFORE the next dispatch consumes x, so collecting the
     # trajectory no longer disables donation (round-2 VERDICT item 3i).
     x = jnp.copy(x_init)   # never donate the caller's buffer

@@ -11,13 +11,13 @@ import argparse
 import datetime
 import io
 import os
+import re
 import shutil
 from typing import Any, Optional, Tuple
 
 import jax
 import numpy as np
 import optax
-import yaml
 
 
 # ---------------------------------------------------------------------------
@@ -94,25 +94,43 @@ def setup_tensorboard(log_root: str = "tensorboard_logs",
 
 
 # ---------------------------------------------------------------------------
-# figures (train_utils.py:78-111)
+# figures (train_utils.py:78-111); matplotlib and PIL are optional — without
+# them figure summaries are skipped, as all summaries are without tensorboardX
 # ---------------------------------------------------------------------------
 
-def plot_to_image(figure) -> np.ndarray:
-    """matplotlib figure -> HWC uint8 array (for add_image)."""
-    import matplotlib.pyplot as plt
+def pyplot():
+    """``matplotlib.pyplot``, or ``None`` where matplotlib is not installed."""
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
+
+
+def plot_to_image(figure) -> Optional[np.ndarray]:
+    """matplotlib figure -> HWC uint8 array (for add_image); ``None`` for
+    no figure or where PIL is not installed."""
+    if figure is None:
+        return None
+    try:
+        from PIL import Image
+    except ImportError:
+        pyplot().close(figure)
+        return None
     buf = io.BytesIO()
     figure.savefig(buf, format="png")
-    plt.close(figure)
+    pyplot().close(figure)
     buf.seek(0)
-    from PIL import Image
-    img = np.asarray(Image.open(buf).convert("RGBA"))
-    return img
+    return np.asarray(Image.open(buf).convert("RGBA"))
 
 
 def image_grid(sample: np.ndarray, data_shape, data_type: str = "image",
                **kwargs):
-    """4x8 grid of images or mel spectrograms (specshow-style origin)."""
-    import matplotlib.pyplot as plt
+    """4x8 grid of images or mel spectrograms (specshow-style origin);
+    ``None`` where matplotlib is not installed."""
+    plt = pyplot()
+    if plt is None:
+        return None
     f, axes = plt.subplots(4, 8, figsize=(12, 6))
     axes = axes.flatten()
     sample = np.asarray(sample)
@@ -130,14 +148,63 @@ def image_grid(sample: np.ndarray, data_shape, data_type: str = "image",
     return f
 
 
+def add_figure(writer, tag: str, figure, step: int) -> None:
+    """Write a figure summary; a no-op when the figure cannot be rendered."""
+    img = plot_to_image(figure)
+    if img is not None:
+        writer.add_image(tag, img, step, dataformats="HWC")
+
+
 # ---------------------------------------------------------------------------
-# config (train_utils.py:114-131)
+# config (train_utils.py:114-131): the configs are flat ``key: value``
+# scalars, read without a YAML library
 # ---------------------------------------------------------------------------
 
-def get_config(config_path: str) -> argparse.Namespace:
+_INT = re.compile(r"[-+]?[0-9]+\Z")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?\Z")
+_BOOLS = {"true": True, "yes": True, "on": True,
+          "false": False, "no": False, "off": False}
+
+
+def _scalar(text: str):
+    """One YAML 1.1 plain or quoted scalar, typed as ``yaml.safe_load``
+    types it."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if text.lower() in _BOOLS:
+        return _BOOLS[text.lower()]
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text) and text not in ("+.", "-.", "."):
+        return float(text.replace("_", ""))
+    return text
+
+
+def read_flat_config(config_path: str) -> dict:
+    """Parse a flat ``key: value`` config (the format of ``configs/*.yml``).
+
+    Blank lines and ``#`` comments are skipped. Nested mappings, lists and
+    multi-line values are rejected: no config of this repo has them.
+    """
+    config = {}
     with open(config_path) as f:
-        config = yaml.safe_load(f)
-    return dict2namespace(config)
+        for n, line in enumerate(f, 1):
+            body = line.split(" #")[0].rstrip()
+            if not body.strip() or body.lstrip().startswith("#"):
+                continue
+            key, sep, value = body.partition(":")
+            if not sep or body[0].isspace() or not key.strip() \
+                    or key.strip().startswith("-"):
+                raise ValueError(f"{config_path}:{n}: expected a flat "
+                                 f"'key: value' line, got {line!r}")
+            config[key.strip()] = _scalar(value.strip())
+    return config
+
+
+def get_config(config_path: str) -> argparse.Namespace:
+    return dict2namespace(read_flat_config(config_path))
 
 
 def dict2namespace(config: dict) -> argparse.Namespace:

@@ -2,8 +2,9 @@
 
 Equivalents of train_glow.py / train_ncsn.py / train_noisy_glow.py training
 math. Each step is one jitted function with donated state; with a mesh, the
-batch axis is sharded and XLA emits the gradient all-reduce over ICI
-(replacing ``strategy.run`` + ``ReduceOp.SUM``, train_glow.py:50-60).
+batch axis is sharded and XLA emits the gradient all-reduce, which it hands
+to NCCL on GPUs (replacing ``strategy.run`` + ``ReduceOp.SUM``,
+train_glow.py:50-60).
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ def max_pairwise_distance(X: np.ndarray, block: int = 512) -> float:
     """Technique 1: max Euclidean distance over all sample pairs.
 
     ``||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y`` computed block-wise as
-    matmuls (MXU-friendly), replacing the reference's O(n^2) per-pair loop
+    matmuls, replacing the reference's O(n^2) per-pair loop
     (technique1_ncsnv2.py:28-35).
     """
     flat = jnp.asarray(np.reshape(X, (len(X), -1)), jnp.float32)

@@ -1,21 +1,9 @@
 #!/usr/bin/env python
-"""End-to-end image-path BASIS timing: XLA conv routing vs the fused
-Winograd kernel (`ops/winograd.py`, `run_basis_sep.py --winograd`).
-
-The melspec headline bench (bench.py) keeps the XLA path — XLA's conv
-lowering is at 88-100% of bf16 peak on those shapes (docs/DESIGN.md
-"Winograd verdict"). The image path (thesis Table 3.2 protocol:
-32x32 sources, NCSNv1 prior) is where the kernel wins standalone
-(32x32@128->128: 1.67x, slope-timed); this script measures what that
-buys the FULL anneal — 10 noise levels x T=100 Langevin steps x 2
-models — end to end, same harness rules as bench.py (fence-completed,
-best-of-2 steady state, random weights = identical FLOPs to trained).
-
-Measured verdict (v5e, bf16, n_mixed=50 T=100): XLA 27.1 s steady vs
-Winograd 38.2 s — 0.71x. The standalone win does not survive context:
-pallas_call is a fusion barrier, so norm/activation epilogues XLA would
-fold into the convs become separate HBM round-trips. The --winograd
-flag is opt-in-experimental everywhere (docs/DESIGN.md Winograd coda).
+"""End-to-end image-path BASIS timing (thesis Table 3.2 protocol: 32x32
+sources, NCSNv1 prior): the FULL anneal — 10 noise levels x T=100
+Langevin steps x 2 models — with the same harness rules as bench.py
+(``block_until_ready``-completed, best-of-2 steady state, random weights =
+identical FLOPs to trained).
 
 Usage: python benchmarks/bench_image_basis.py [--n_mixed 50] [--T 100]
 """
@@ -30,51 +18,38 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from audiosourcesep_tpu.utils.profiling import (enable_compilation_cache,
-                                                fence, steady_state)
-
-enable_compilation_cache()
-
-import audiosourcesep_tpu.nn as nn_mod
 from audiosourcesep_tpu.models.ncsn import get_score_model, get_sigmas
 from audiosourcesep_tpu.separation import (BasisConfig,
                                            basis_separate_per_level,
                                            ncsn_score_fn, stack_pytrees)
+from audiosourcesep_tpu.utils.profiling import steady_state
 
 DATA_SHAPE = (32, 32, 1)
 N_FILTERS = 128
 NUM_CLASSES = 10
 
 
-def time_variant(use_winograd: bool, n_mixed: int, T: int, dtype):
-    """Build + run the full anneal with the given conv routing. A fresh
-    model/score closure per variant forces a fresh trace (the routing
-    flag is read at trace time, not a jit argument)."""
-    nn_mod.set_winograd(use_winograd)
-    try:
-        sigmas = get_sigmas(1.0, 0.01, NUM_CLASSES, "logarithmic")
-        model = get_score_model("v1", DATA_SHAPE, N_FILTERS, NUM_CLASSES,
-                                compute_dtype=dtype)
-        k0, k1, k2, k3, k4 = jax.random.split(
-            jax.random.PRNGKey(0), 5)
-        stacked = stack_pytrees(model.init_params(k0), model.init_params(k1))
-        mixed = jax.random.uniform(k2, (n_mixed, *DATA_SHAPE))
-        x_init = jax.random.uniform(k3, (2, n_mixed, *DATA_SHAPE))
-        cfg = BasisConfig(T=T, delta=2e-5, data_type="image",
-                          collect_trajectory=False)
-        score = ncsn_score_fn(model.apply)
+def time_variant(n_mixed: int, T: int, dtype):
+    """Build + run the full anneal; returns ``(first_s, steady_s)``."""
+    sigmas = get_sigmas(1.0, 0.01, NUM_CLASSES, "logarithmic")
+    model = get_score_model("v1", DATA_SHAPE, N_FILTERS, NUM_CLASSES,
+                            compute_dtype=dtype)
+    k0, k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(0), 5)
+    stacked = stack_pytrees(model.init_params(k0), model.init_params(k1))
+    mixed = jax.random.uniform(k2, (n_mixed, *DATA_SHAPE))
+    x_init = jax.random.uniform(k3, (2, n_mixed, *DATA_SHAPE))
+    cfg = BasisConfig(T=T, delta=2e-5, data_type="image",
+                      collect_trajectory=False)
+    score = ncsn_score_fn(model.apply)
 
-        def run(key):
-            out, _ = basis_separate_per_level(score, stacked, mixed, x_init,
-                                              sigmas, key, cfg)
-            fence(out)
-            return out
+    def run(key):
+        out, _ = basis_separate_per_level(score, stacked, mixed, x_init,
+                                          sigmas, key, cfg)
+        return jax.block_until_ready(out)
 
-        first, best, out = steady_state(run, k4)
-        assert bool(jnp.isfinite(out).all())
-        return first, best
-    finally:
-        nn_mod.set_winograd(False)
+    first, best, out = steady_state(run, k4)
+    assert bool(jnp.isfinite(out).all())
+    return first, best
 
 
 def main():
@@ -85,21 +60,15 @@ def main():
     args = ap.parse_args()
     dtype = jnp.bfloat16 if args.dtype == "bf16" else None
 
-    results = {}
-    for name, wino in (("xla", False), ("winograd", True)):
-        first, best = time_variant(wino, args.n_mixed, args.T, dtype)
-        results[name] = best
-        print(f"# {name}: first_call={first:.1f}s steady={best:.3f}s",
-              file=sys.stderr)
-
+    first, best = time_variant(args.n_mixed, args.T, dtype)
+    print(f"# first_call={first:.1f}s steady={best:.3f}s", file=sys.stderr)
     print(json.dumps({
         "metric": "basis_image_anneal_wallclock",
         "n_mixed": args.n_mixed,
         "T": args.T,
         "levels": NUM_CLASSES,
-        "xla_s": round(results["xla"], 3),
-        "winograd_s": round(results["winograd"], 3),
-        "speedup": round(results["xla"] / results["winograd"], 3),
+        "value": round(best, 3),
+        "unit": "s",
     }))
 
 

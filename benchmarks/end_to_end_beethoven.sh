@@ -5,16 +5,6 @@
 # ground-truth stems, runs BASIS separation on the mix, inverts to audio,
 # and scores SDR/SIR/SAR with the built-in BSS-Eval v4.
 #
-# Round-1 measured results (TPU v5e-1; priors data-starved at 29 training
-# patches each vs the reference's 4,863):
-#   training: 300 epochs/model, ~15-18 min each (f32)
-#   separation (28 frames, 10 levels x T=100): 210.9 s f32 CLI path
-#     (the bf16 path used by bench.py runs the same workload in ~133 s)
-#   inversion (phase reuse + Wiener, CPU): 105 s
-#   SDR [piano, violin] = [4.57, 1.56] dB, SIR = [8.22, 3.98] dB
-#   (--compute_dtype bf16: SDR [4.56, 1.55] dB -- quality-neutral)
-#   IBM oracle upper bound SDR = [15.22, 14.04] dB
-#
 # Usage: bash benchmarks/end_to_end_beethoven.sh /path/to/workdir
 set -e
 cd "$(dirname "$0")/.."

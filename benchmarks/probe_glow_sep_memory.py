@@ -6,14 +6,15 @@ dispatches `basis_separate_per_level.run_level` with a level-major
 [2, 28, 96, 64, 1] iterate, differentiating the flow w.r.t. its input
 every Langevin step. This probe lowers THAT exact program with abstract
 arguments on the CPU backend and prints XLA's memory analysis
-(argument/output/temp sizes), so the HBM footprint is known before the
-multi-hour training chain hands the TPU to the separation stage.
+(argument/output/temp sizes), so the device-memory footprint is known
+before the multi-hour training chain hands the device to the separation
+stage.
 Run: JAX_PLATFORMS=cpu python benchmarks/probe_glow_sep_memory.py \
          [--remat] [--chunk N]
 
 Measured (CPU backend buffer assignment, 2026-08-19): full-batch VJP
-temps are 18.1 GiB (args 2.95 GiB stack -> 21.1 GiB peak, over a v5e's
-16 GiB HBM); per-step jax.checkpoint changes nothing (18.0 GiB — XLA
+temps are 18.1 GiB (args 2.95 GiB stack -> 21.1 GiB peak); per-step
+jax.checkpoint changes nothing (18.0 GiB — XLA
 schedules the rematerialised forwards eagerly, so the saved residuals
 are live anyway); --chunk 8 (the run_basis_sep.py --score_chunk
 default) bounds temps at 5.44 GiB -> 8.40 GiB peak.
@@ -29,8 +30,7 @@ import numpy as np
 
 from audiosourcesep_tpu.models.flow_builder import build_glow
 from audiosourcesep_tpu.separation.basis import (BasisConfig, glow_score_fn,
-                                                 _clip_scores)
-from audiosourcesep_tpu.separation.mixing import mixing_process
+                                                 make_level_program)
 
 L_SIGMA, K_SRC, N, H, W, C, T = 10, 2, 28, 96, 64, 1, 100
 TINY = dict(L_SIGMA=2, K_SRC=2, N=4, H=16, W=16, C=1, T=2,
@@ -52,27 +52,10 @@ def main(remat: bool, chunk=None, tiny: bool = False):
         learntop=True, data_type="melspec", use_logit=False,
         minval=-100.0, maxval=20.0, remat=remat)
     score_fn = glow_score_fn(model.log_prob, frame_chunk=chunk)
-    g, grad_g = mixing_process("melspec", "dB")
     cfg = BasisConfig(T=T, delta=0.288, data_type="melspec", scale="dB",
                       score_clip=5.0)
     sigmas = jnp.asarray(np.geomspace(120.0, 1.2, L_SIGMA))
-
-    def run_level(params, x, mixed, level, key):
-        sigma = sigmas[level]
-        eta = cfg.delta * jnp.square(sigma / sigmas[-1])
-        lam = 1.0 / jnp.square(sigma)
-        labels = jnp.full((N,), level, jnp.int32)
-
-        def step_body(x, k):
-            noise = (jax.random.normal(k, x.shape, x.dtype)
-                     * jnp.sqrt(2.0 * eta).astype(x.dtype))
-            scores = _clip_scores(score_fn(params, x, labels, level), sigma,
-                                  cfg.score_clip)
-            recon = lam.astype(x.dtype) * grad_g(x) * (mixed - g(x))
-            return x + eta.astype(x.dtype) * (scores + recon) + noise, None
-
-        x, _ = jax.lax.scan(step_body, x, jax.random.split(key, cfg.T))
-        return x
+    run_level = make_level_program(score_fn, sigmas, cfg, N)
 
     abstract = jax.tree_util.tree_map(
         lambda a: jax.ShapeDtypeStruct((L_SIGMA, K_SRC) + a.shape, a.dtype),
@@ -81,7 +64,7 @@ def main(remat: bool, chunk=None, tiny: bool = False):
     print(f"flow params: {n_params/1e6:.1f} M "
           f"(stack {L_SIGMA * K_SRC * n_params * 4 / 2**30:.2f} GiB fp32)")
 
-    lowered = jax.jit(run_level, donate_argnums=(1,)).lower(
+    lowered = run_level.lower(
         abstract,
         jax.ShapeDtypeStruct((K_SRC, N, H, W, C), jnp.float32),
         jax.ShapeDtypeStruct((N, H, W, C), jnp.float32),

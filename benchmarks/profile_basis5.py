@@ -16,9 +16,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from audiosourcesep_tpu.utils.profiling import enable_compilation_cache, fence
-
-enable_compilation_cache()
 
 from audiosourcesep_tpu.models.ncsn import get_score_model, get_sigmas
 from audiosourcesep_tpu.separation import (BasisConfig,
@@ -51,7 +48,7 @@ def main():
     def one_level(key):
         out, _ = basis_separate_per_level(score, stacked, mixed, x_init,
                                           sigmas[:1], key, cfg1)
-        fence(out)   # host fetch = reliable completion fence
+        jax.block_until_ready(out)
         return out
 
     one_level(k4)   # compile
@@ -70,7 +67,7 @@ def main():
     def full(key):
         out, _ = basis_separate_per_level(score, stacked, mixed, x_init,
                                           sigmas, key, cfgL)
-        fence(out)   # host fetch = reliable completion fence
+        jax.block_until_ready(out)
         return out
 
     full(k4)

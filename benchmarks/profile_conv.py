@@ -1,10 +1,21 @@
 #!/usr/bin/env python
-"""Conv formulation shoot-out at the BASIS hot shape (96x64, 192ch).
+"""XLA's bf16 3x3 stride-1 conv at the score networks' three hot classes.
 
-All timings scan-amortized with max-feedback (see profile_basis4);
-subtract ~30ms/iters executable-load overhead when comparing.
+Classes (batch, H, W, C_in -> C_out):
+  * 32x32@128: the image-path NCSNv1 (128 filters), 50 frames;
+  * 96x64@192->384 and 48x32@384: the melspec NCSNv1 (192 filters),
+    30 frames.
+
+Each conv runs inside a ``lax.scan`` that CARRIES the iterate and folds in
+``max(y)`` (a max over the output cannot be pushed into the contraction,
+so XLA must compute the whole conv every step). The time per conv is the
+SLOPE between two scan lengths, so dispatch and feedback overheads cancel.
+FLOP rates are computed from the shapes. Prints one JSON line per class.
+
+Usage: python benchmarks/profile_conv.py
 """
 
+import json
 import os
 import sys
 import time
@@ -14,95 +25,60 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from audiosourcesep_tpu.utils.profiling import enable_compilation_cache, fence
+from audiosourcesep_tpu.utils.profiling import device_report, nvidia_smi
 
-enable_compilation_cache()
-
-from benchmarks.profile_basis4 import scan_time_max
-
-ITERS = 30
-LOAD_MS = 30.0 / ITERS   # executable-load amortized per iter
-
-
-def report(name, dt, fl):
-    ms = dt * 1e3
-    print(f"{name}: {ms:.3f} ms raw, {ms - LOAD_MS:.3f} ms net  "
-          f"{fl/(dt - LOAD_MS/1e3)/1e12:.1f} TFLOP/s", flush=True)
+CLASSES = (("32x32@128", 50, 32, 32, 128, 128),
+           ("96x64@192->384", 30, 96, 64, 192, 384),
+           ("48x32@384", 30, 48, 32, 384, 384))
+SHORT, LONG = 10, 40
+REPS = 3
 
 
-def main():
-    print(f"device: {jax.devices()[0].device_kind}", flush=True)
-    kx, kk = jax.random.split(jax.random.PRNGKey(3))
-    FL = 2 * 60 * 96 * 64 * 9 * 192 * 192   # the batch-60 192->192 conv
+def conv(kernel, x):
+    return jax.lax.conv_general_dilated(
+        x, kernel, (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
 
-    # A. reference formulation: batch-60 dense 192->192
-    xb = jax.random.normal(kx, (60, 96, 64, 192), jnp.bfloat16)
-    kern = jax.random.normal(kk, (3, 3, 192, 192), jnp.bfloat16)
-    dt = scan_time_max(
-        lambda k, v: jax.lax.conv_general_dilated(
-            v, k, (1, 1), "SAME",
-            dimension_numbers=("NHWC", "HWIO", "NHWC")),
-        kern, xb, iters=ITERS)
-    report("A dense batch60 NHWC", dt, FL)
 
-    # B. grouped: both models as one conv, batch 30, groups=2
-    xg = jax.random.normal(kx, (30, 96, 64, 384), jnp.bfloat16)
-    kg = jax.random.normal(kk, (3, 3, 192, 384), jnp.bfloat16)
-    dt = scan_time_max(
-        lambda k, v: jax.lax.conv_general_dilated(
-            v, k, (1, 1), "SAME", feature_group_count=2,
-            dimension_numbers=("NHWC", "HWIO", "NHWC")),
-        kg, xg, iters=ITERS)
-    report("B grouped g=2 batch30", dt, FL)
+def scan_time(kernel, x, length):
+    """Best-of-REPS wall-clock of ``length`` chained convs."""
+    @jax.jit
+    def loop(k, x0):
+        def body(carry, _):
+            m = jnp.max(conv(k, carry)).astype(carry.dtype)
+            return carry * 0.999 + m * 1e-6, None
+        out, _ = jax.lax.scan(body, x0, None, length=length)
+        return jnp.sum(out)
 
-    # C. NCHW layout
-    xc = jax.random.normal(kx, (60, 192, 96, 64), jnp.bfloat16)
-    kc = jax.random.normal(kk, (192, 192, 3, 3), jnp.bfloat16)
-    dt = scan_time_max(
-        lambda k, v: jax.lax.conv_general_dilated(
-            v, k, (1, 1), "SAME",
-            dimension_numbers=("NCHW", "OIHW", "NCHW")),
-        kc, xc, iters=ITERS)
-    report("C dense NCHW", dt, FL)
+    jax.block_until_ready(loop(kernel, x))
+    best = float("inf")
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        jax.block_until_ready(loop(kernel, x))
+        best = min(best, time.perf_counter() - t0)
+    return best
 
-    # D. 9-shifted-matmul formulation (halo via pad+slice)
-    km = jax.random.normal(kk, (9, 192, 192), jnp.bfloat16)
 
-    def shifted_mm(k, v):
-        n, h, w, c = v.shape
-        vp = jnp.pad(v, ((0, 0), (1, 1), (1, 1), (0, 0)))
-        out = None
-        for i, (dy, dx) in enumerate([(a, b) for a in range(3)
-                                      for b in range(3)]):
-            sl = jax.lax.dynamic_slice(vp, (0, dy, dx, 0), (n, h, w, c))
-            y = jnp.einsum("nhwc,cd->nhwd", sl, k[i],
-                           preferred_element_type=jnp.bfloat16)
-            out = y if out is None else out + y
-        return out
+def slope_time(kernel, x, short=SHORT, long=LONG):
+    """Seconds per conv: ``(t(long) - t(short)) / (long - short)``."""
+    return ((scan_time(kernel, x, long) - scan_time(kernel, x, short))
+            / (long - short))
 
-    dt = scan_time_max(shifted_mm, km, xb, iters=ITERS)
-    report("D 9-shift matmul", dt, FL)
 
-    # E. f32 accumulate output
-    dt = scan_time_max(
-        lambda k, v: jax.lax.conv_general_dilated(
-            v, k, (1, 1), "SAME",
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            preferred_element_type=jnp.float32).astype(jnp.bfloat16),
-        kern, xb, iters=ITERS)
-    report("E dense f32-accum", dt, FL)
-
-    # F. half-res half-channel sanity ladder: 128 and 256 channels
-    for ch in (128, 256):
-        xf = jax.random.normal(kx, (60, 96, 64, ch), jnp.bfloat16)
-        kf = jax.random.normal(kk, (3, 3, ch, ch), jnp.bfloat16)
-        fl = 2 * 60 * 96 * 64 * 9 * ch * ch
-        dt = scan_time_max(
-            lambda k, v: jax.lax.conv_general_dilated(
-                v, k, (1, 1), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC")),
-            kf, xf, iters=ITERS)
-        report(f"F dense {ch}ch", dt, fl)
+def main(classes=CLASSES, short=SHORT, long=LONG):
+    device = device_report()
+    print(f"nvidia-smi: {nvidia_smi()}")
+    print(f"jax device: {json.dumps(device)}")
+    kx, kk = jax.random.split(jax.random.PRNGKey(0))
+    for name, n, h, w, cin, cout in classes:
+        x = jax.random.normal(kx, (n, h, w, cin), jnp.bfloat16)
+        k = jax.random.normal(kk, (3, 3, cin, cout), jnp.bfloat16) * 0.05
+        dt = slope_time(k, x, short, long)
+        flops = 2 * n * h * w * 9 * cin * cout
+        print(json.dumps({"metric": "xla_conv_bf16", "class": name,
+                          "batch": n, "ms": dt * 1e3,
+                          "tflop_per_s": flops / dt / 1e12 if dt > 0
+                          else None, "device": device}))
 
 
 if __name__ == "__main__":

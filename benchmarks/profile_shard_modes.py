@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Score-eval mode A/B at the v5e-8 per-chip shard size.
+"""Score-eval mode A/B at the 8-device per-device shard size.
 
 Round-2 measured `ncsn_score_fn(mode='sequential')` (two plain batch-N
 applies) ~7% faster than `mode='vmap'` (one batched-weight batch-2N
-apply) at the full 30-frame batch. At the 8-chip shard the per-apply
+apply) at the full 30-frame batch. At the 8-device shard the per-apply
 batch is only 4, where per-op overheads and small-matmul tiling may flip
 the verdict — this reruns the REAL anneal at the shard size under both
 modes. If 'vmap' wins small, the separation driver should pick the mode
-by per-chip batch.
+by per-device batch.
 
 Usage: python benchmarks/profile_shard_modes.py [n_frames]
 """
@@ -22,10 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from audiosourcesep_tpu.models.ncsn import get_score_model, get_sigmas
-from audiosourcesep_tpu.utils.profiling import (enable_compilation_cache,
-                                                fence, steady_state)
-
-enable_compilation_cache()
+from audiosourcesep_tpu.utils.profiling import steady_state
 from audiosourcesep_tpu.separation import (BasisConfig,
                                            basis_separate_per_level,
                                            ncsn_score_fn, stack_pytrees)
@@ -45,7 +42,7 @@ def main():
     p1 = model.init_params(k0)
     p2 = model.init_params(k1)
     stacked = stack_pytrees(p1, p2)
-    fence(stacked)
+    jax.block_until_ready(stacked)
 
     mixed = jax.random.normal(k2, (n_frames, *DATA_SHAPE)) * 0.2 + 0.5
     x_init = jax.random.uniform(k3, (2, n_frames, *DATA_SHAPE))
@@ -59,7 +56,7 @@ def main():
         def run(key):
             out, _ = basis_separate_per_level(score, stacked, mixed,
                                               x_init, sigmas, key, cfg)
-            fence(out)
+            jax.block_until_ready(out)
             return out
 
         first, elapsed, out = steady_state(run, k4)

@@ -22,10 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from audiosourcesep_tpu.models.ncsn import get_score_model, get_sigmas
-from audiosourcesep_tpu.utils.profiling import (enable_compilation_cache,
-                                                fence, steady_state)
-
-enable_compilation_cache()
+from audiosourcesep_tpu.utils.profiling import steady_state
 from audiosourcesep_tpu.separation import (BasisConfig,
                                            basis_separate_per_level,
                                            ncsn_score_fn, stack_pytrees)
@@ -45,7 +42,7 @@ def main():
     p1 = model.init_params(k0)
     p2 = model.init_params(k1)
     stacked = stack_pytrees(p1, p2)
-    fence(stacked)
+    jax.block_until_ready(stacked)
 
     mixed = jax.random.normal(k2, (n_frames, *DATA_SHAPE)) * 0.2 + 0.5
     x_init = jax.random.uniform(k3, (2, n_frames, *DATA_SHAPE))
@@ -59,9 +56,9 @@ def main():
         def run(key):
             out, traj = basis_separate_per_level(score, stacked, mixed,
                                                  x_init, sigmas, key, cfg)
-            fence(out)
+            jax.block_until_ready(out)
             if traj is not None:
-                fence(traj)
+                jax.block_until_ready(traj)
             return out
 
         first, elapsed, out = steady_state(run, k4)

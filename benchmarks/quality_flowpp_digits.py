@@ -35,9 +35,6 @@ from audiosourcesep_tpu.models import build_flowpp
 from audiosourcesep_tpu.training import (init_train_state,
                                          make_flow_train_step,
                                          setup_optimizer)
-from audiosourcesep_tpu.utils.profiling import enable_compilation_cache
-
-enable_compilation_cache()
 
 N_EPOCHS = 100
 BATCH = 64

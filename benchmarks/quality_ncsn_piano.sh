@@ -31,9 +31,9 @@ print(f"split {len(audio)/sr:.1f}s piano at 48s (sr={sr})")
 EOF
 
 # 8x overlap augmentation on train only (test windows stay disjoint)
-JAX_PLATFORMS=cpu python wav_to_spec.py $R/train_src $R/ds/train --use_dB --tfrecords \
+python wav_to_spec.py $R/train_src $R/ds/train --use_dB --tfrecords \
     --overlap 0.875
-JAX_PLATFORMS=cpu python wav_to_spec.py $R/test_src $R/ds/test --use_dB --tfrecords
+python wav_to_spec.py $R/test_src $R/ds/test --use_dB --tfrecords
 
 python train_ncsn.py --dataset $R/ds --output $R/ncsn_piano_192_32_dB \
     --debug --version v1 --n_filters 192 --num_classes 10 \

@@ -41,9 +41,9 @@ cut = int(48.0 * sr)
 write_wav(f"{r}/{inst}_train_src/{inst}_train.wav", audio[:cut], sr)
 write_wav(f"{r}/{inst}_test_src/{inst}_test.wav", audio[cut:], sr)
 EOF
-        JAX_PLATFORMS=cpu python wav_to_spec.py $R/${inst}_train_src \
+        python wav_to_spec.py $R/${inst}_train_src \
             $R/${inst}_ds/train --use_dB --tfrecords --overlap 0.875
-        JAX_PLATFORMS=cpu python wav_to_spec.py $R/${inst}_test_src \
+        python wav_to_spec.py $R/${inst}_test_src \
             $R/${inst}_ds/test --use_dB --tfrecords
     fi
 done
@@ -82,7 +82,7 @@ python run_basis_sep.py $R/ncsnv2_piano $R/ncsnv2_violin \
 grep -E "Duration" $R/basis/out.log
 
 # ---- inversion + SDR (same protocol as quality_sdr_beethoven.sh) ---------
-JAX_PLATFORMS=cpu python melspec_inversion_basis.py $R/basis --debug \
+python melspec_inversion_basis.py $R/basis --debug \
     --algorithm reuse_phase --method frame --wiener_filter
 
 R=$R python - <<'EOF'

@@ -33,9 +33,9 @@ cut = int(48.0 * sr)
 write_wav(f"{r}/violin_train_src/violin_train.wav", audio[:cut], sr)
 write_wav(f"{r}/violin_test_src/violin_test.wav", audio[cut:], sr)
 EOF
-    JAX_PLATFORMS=cpu python wav_to_spec.py $R/violin_train_src \
+    python wav_to_spec.py $R/violin_train_src \
         $R/violin_ds/train --use_dB --tfrecords --overlap 0.875
-    JAX_PLATFORMS=cpu python wav_to_spec.py $R/violin_test_src \
+    python wav_to_spec.py $R/violin_test_src \
         $R/violin_ds/test --use_dB --tfrecords
     python train_ncsn.py --dataset $R/violin_ds \
         --output $R/ncsn_violin_192_32_dB --debug --version v1 \
@@ -57,12 +57,7 @@ python run_basis_sep.py $R/ncsn_piano_192_32_dB $R/ncsn_violin_192_32_dB \
     --n_filters 192 --ema --compute_dtype bf16
 
 # ---- inversion + SDR -----------------------------------------------------
-# accelerator inversion (NNLS matmuls + FFTs on the chip; complex arrays
-# cross the host boundary as split real/imag); falls back to CPU
 python melspec_inversion_basis.py $R/basis --debug \
-    --algorithm reuse_phase --method frame --wiener_filter \
-    --device accelerator || \
-JAX_PLATFORMS=cpu python melspec_inversion_basis.py $R/basis --debug \
     --algorithm reuse_phase --method frame --wiener_filter
 
 R=$R python - <<'EOF'

@@ -53,9 +53,9 @@ cut = int(48.0 * sr)
 write_wav(f"{r}/{inst}_train_src/{inst}_train.wav", audio[:cut], sr)
 write_wav(f"{r}/{inst}_test_src/{inst}_test.wav", audio[cut:], sr)
 EOF
-        JAX_PLATFORMS=cpu python wav_to_spec.py $R/${inst}_train_src \
+        python wav_to_spec.py $R/${inst}_train_src \
             $R/${inst}_ds/train --use_dB --tfrecords --overlap 0.875
-        JAX_PLATFORMS=cpu python wav_to_spec.py $R/${inst}_test_src \
+        python wav_to_spec.py $R/${inst}_test_src \
             $R/${inst}_ds/test --use_dB --tfrecords
     fi
 
@@ -85,9 +85,6 @@ python run_basis_sep.py $R/noisy_glow_piano $R/noisy_glow_violin \
 
 # ---- inversion + SDR (same protocol as quality_sdr_beethoven.sh) ---------
 python melspec_inversion_basis.py $R/basis --debug \
-    --algorithm reuse_phase --method frame --wiener_filter \
-    --device accelerator || \
-JAX_PLATFORMS=cpu python melspec_inversion_basis.py $R/basis --debug \
     --algorithm reuse_phase --method frame --wiener_filter
 
 R=$R python - <<'EOF'

@@ -19,8 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from audiosourcesep_tpu.data import write_wav
-from audiosourcesep_tpu.ops import (as_device_complex, db_to_power,
-                                    invert_melspec_reuse_phase, mel_to_audio)
+from audiosourcesep_tpu.ops import (db_to_power, invert_melspec_reuse_phase,
+                                    mel_to_audio)
 
 SR = 16000
 FMIN, FMAX = 125.0, 7600.0
@@ -33,10 +33,6 @@ def concat_frames(audio_frames: np.ndarray) -> np.ndarray:
 
 
 def main(args):
-    if args.device == "cpu":
-        # complex-FFT-heavy offline tool; some TPU runtimes lack complex
-        # transfers, and CPU is plenty for this stage
-        jax.config.update("jax_platforms", "cpu")
     os.chdir(args.basis_results)
     basis_results = np.load("results.npz")
 
@@ -91,7 +87,7 @@ def main(args):
         def invert_pair(a, b):
             mels = jnp.asarray(np.stack([a, b]))       # [2, n, mel, F]
             out = invert_melspec_reuse_phase(
-                mels, as_device_complex(stft_mixture), scale=args.scale,
+                mels, jnp.asarray(stft_mixture), scale=args.scale,
                 wiener_filter=args.wiener_filter, sr=SR, n_fft=N_FFT,
                 hop_length=HOP, fmin=FMIN, fmax=FMAX)
             return (concat_frames(np.asarray(out[0])),
@@ -100,7 +96,7 @@ def main(args):
         x1_inv, x2_inv = invert_pair(x1, x2)
         gt1_inv, gt2_inv = invert_pair(gt1, gt2)
         mix_single = invert_melspec_reuse_phase(
-            jnp.asarray(mix)[None], as_device_complex(stft_mixture),
+            jnp.asarray(mix)[None], jnp.asarray(stft_mixture),
             scale=args.scale, wiener_filter=False, sr=SR, n_fft=N_FFT,
             hop_length=HOP, fmin=FMIN, fmax=FMAX)
         mix_inv = concat_frames(np.asarray(mix_single[0]))
@@ -132,6 +128,4 @@ if __name__ == "__main__":
     parser.add_argument("--wiener_filter", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--device", type=str, default="cpu",
-                        help="cpu (default; offline tool) or accelerator")
     main(parser.parse_args())

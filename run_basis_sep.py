@@ -19,7 +19,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from audiosourcesep_tpu import cli
-from audiosourcesep_tpu import nn as nn_mod
 from audiosourcesep_tpu.data import get_mixture_toydata, get_song_extract, write_wav
 from audiosourcesep_tpu.models import build_glow
 from audiosourcesep_tpu.models.ncsn import get_score_model, get_sigmas
@@ -35,8 +34,8 @@ from audiosourcesep_tpu.separation import (BasisConfig,
                                            source_sharded_glow_score,
                                            source_sharded_ncsn_score,
                                            stack_pytrees)
-from audiosourcesep_tpu.utils.profiling import fence
-from audiosourcesep_tpu.training import (CheckpointManager, restore_pytree,
+from audiosourcesep_tpu.training import (CheckpointManager, add_figure,
+                                         pyplot, restore_pytree,
                                          setup_tensorboard)
 
 SPEC_PARAMS = {"length_sec": 2.04, "dbmin": -100.0, "dbmax": 20.0,
@@ -146,18 +145,10 @@ def main(args):
         spec = dict(SPEC_PARAMS, use_dB=(args.scale == "dB"),
                     n_mels=args.height)
         duration = spec["length_sec"] * args.n_mixed
-        # data prep is milliseconds of compute; pin it to CPU so it never
-        # pays an accelerator compile (observed ~130 s of XLA compile for
-        # this step when left on the TPU)
-        try:
-            cpu = jax.devices("cpu")[0]
-        except RuntimeError:
-            cpu = None
-        with jax.default_device(cpu):
-            mel_spec, raw_audio, stft_mixture = get_song_extract(
-                os.path.join(song_dir, "mix.wav"),
-                os.path.join(song_dir, "piano.wav"),
-                os.path.join(song_dir, "violin.wav"), duration, **spec)
+        mel_spec, raw_audio, stft_mixture = get_song_extract(
+            os.path.join(song_dir, "mix.wav"),
+            os.path.join(song_dir, "piano.wav"),
+            os.path.join(song_dir, "violin.wav"), duration, **spec)
         mixed = jnp.asarray(mel_spec[0])
         gt1, gt2 = jnp.asarray(mel_spec[1]), jnp.asarray(mel_spec[2])
         minibatch = gt1
@@ -185,12 +176,11 @@ def main(args):
     print(f"Data Loaded in {round(time.time() - t0, 3)} seconds")
 
     # ---------------- models ----------------------------------------------
-    # --shard_sources: 2-D (source, frame) mesh — each chip holds ONE
-    # model and 2x the frames, keeping the per-apply conv batch in the
-    # MXU's efficient range on large pods (measured scaling cliff at
-    # <8 frames/apply, docs/DESIGN.md round-4 table). For Glow priors it
-    # additionally halves per-chip HBM: each chip row holds one source's
-    # sigma-stacked param chain instead of a replica of both.
+    # --shard_sources: 2-D (source, frame) mesh — each device holds ONE
+    # model and 2x the frames, so the per-apply conv batch does not shrink
+    # as fast with the device count as under frame-only sharding. For Glow
+    # priors it also halves per-device prior memory: each device row holds
+    # one source's sigma-stacked param chain instead of a replica of both.
     shard_sources = (args.shard_sources and jax.device_count() > 1
                      and jax.device_count() % 2 == 0)
     if args.shard_sources and not shard_sources:
@@ -200,11 +190,6 @@ def main(args):
         mesh = make_source_mesh(2)
     elif jax.device_count() > 1:
         mesh = make_mesh()
-    if args.winograd:
-        # route eligible 3x3 convs through the fused Winograd kernel for
-        # BOTH prior families (no-op off-TPU). Set before the first trace —
-        # traces are cached.
-        nn_mod.set_winograd(True)
     if args.model_type == "glow":
         rng, k_init = jax.random.split(rng)
         model, template = build_glow(
@@ -225,8 +210,8 @@ def main(args):
                 print(f"Model at noise level {sigma} restored from {d}")
             raw_levels.append(level_params)
         if shard_sources:
-            # source-major stack [2, L_sigma, ...]: each chip row holds
-            # one source's whole sigma chain (half the replicated HBM)
+            # source-major stack [2, L_sigma, ...]: each device row holds
+            # one source's whole sigma chain (half the replicated memory)
             stacked = stack_pytrees(*[
                 stack_pytrees(*[lvl[k] for lvl in raw_levels])
                 for k in range(2)])
@@ -310,9 +295,10 @@ def main(args):
         print(f"Sigma = {sigmas[level]} ({level + 1} / {len(sigmas)}) done")
         if (level + 1) % snap_every and (level + 1) != len(sigmas):
             return
+        plt = pyplot()
+        if plt is None:
+            return
         try:
-            from audiosourcesep_tpu.training import plot_to_image
-            import matplotlib.pyplot as plt
             n_show = min(5, x.shape[1])
             f, axes = plt.subplots(n_show, 3, figsize=(6, 8), squeeze=False)
             for i in range(n_show):
@@ -323,8 +309,7 @@ def main(args):
                                       aspect="auto", cmap="magma")
                     axes[i][j].set_axis_off()
             f.suptitle("Separation: Mixture = Component 1 + Component 2")
-            train_writer.add_image("Components", plot_to_image(f),
-                                   (level + 1) * args.T, dataformats="HWC")
+            add_figure(train_writer, "Components", f, (level + 1) * args.T)
         except Exception:
             pass
 
@@ -333,9 +318,7 @@ def main(args):
     x_final, traj = basis_separate_per_level(
         score_fn, stacked, mixed_dev, x_init, sigmas, k_sep, cfg,
         callback=progress)
-    # completion fence before reading the clock (block_until_ready can
-    # return early on this backend; see utils.profiling.fence)
-    fence(x_final)
+    jax.block_until_ready(x_final)
     x_final = x_final[:, :n_frames]
     if traj is not None:
         traj = traj[:, :, :n_frames]
@@ -367,20 +350,13 @@ def main(args):
         x1_concat = np.concatenate(list(x1_out), axis=-1)
         x2_concat = np.concatenate(list(x2_out), axis=-1)
         rng, k_inv = jax.random.split(rng)
-        # complex-FFT-heavy; run on CPU (cheap, and some TPU runtimes lack
-        # complex transfers)
-        try:
-            cpu = jax.devices("cpu")[0]
-        except RuntimeError:
-            cpu = None
-        with jax.default_device(cpu):
-            mels = jnp.asarray(np.stack([x1_concat, x2_concat]))
-            if args.scale == "dB":
-                mels = db_to_power(mels)
-            audio = np.asarray(mel_to_audio(
-                mels, k_inv, sr=sr, n_fft=SPEC_PARAMS["n_fft"],
-                hop_length=SPEC_PARAMS["hop_length"],
-                fmin=SPEC_PARAMS["fmin"], fmax=SPEC_PARAMS["fmax"]))
+        mels = jnp.asarray(np.stack([x1_concat, x2_concat]))
+        if args.scale == "dB":
+            mels = db_to_power(mels)
+        audio = np.asarray(mel_to_audio(
+            mels, k_inv, sr=sr, n_fft=SPEC_PARAMS["n_fft"],
+            hop_length=SPEC_PARAMS["hop_length"],
+            fmin=SPEC_PARAMS["fmin"], fmax=SPEC_PARAMS["fmax"]))
         write_wav("sep1.wav", audio[0], sr)
         write_wav("sep2.wav", audio[1], sr)
         for i in range(2):
@@ -413,37 +389,25 @@ if __name__ == "__main__":
                         help="restore the EMA weights of NCSN priors "
                              "(reference ncsn_generate_samples.py:88-89)")
     parser.add_argument("--compute_dtype", type=str, default="f32",
-                        help="f32 (reference numerics) or bf16 (TPU fast "
-                             "path: ~1.5x faster separation)")
-    parser.add_argument("--winograd", action="store_true",
-                        help="EXPERIMENTAL: route eligible 3x3 convs "
-                             "through the fused Winograd kernel (TPU "
-                             "only). Wins 1.67x on the isolated "
-                             "32x32@128 conv but measured SLOWER "
-                             "end-to-end on the full anneal (0.71x, "
-                             "benchmarks/bench_image_basis.py) — the "
-                             "pallas_call fusion barrier costs more "
-                             "than the FLOP saving. Off by default "
-                             "everywhere; kept for re-evaluation on "
-                             "other models/hardware.")
+                        help="score-network compute dtype: f32 "
+                             "(reference numerics; TF32 convs on GPUs "
+                             "unless matmul precision is pinned) or bf16 "
+                             "(norm statistics and the Langevin update "
+                             "stay f32)")
     parser.add_argument("--shard_sources", action="store_true",
-                        help="2-D (source, frame) mesh: each chip holds "
-                             "ONE prior and 2x the frames. Keeps the "
-                             "per-apply conv batch in the MXU-efficient "
-                             "range on pods where frame-only sharding "
-                             "starves it (measured cliff below ~8 "
-                             "frames/apply, docs/DESIGN.md); for Glow "
-                             "priors also halves per-chip HBM (one "
-                             "source's sigma chain per chip row). Even "
-                             "device counts only")
+                        help="2-D (source, frame) mesh: each device holds "
+                             "ONE prior and 2x the frames, instead of "
+                             "both priors on a frame shard; for Glow "
+                             "priors also halves per-device prior memory "
+                             "(one source's sigma chain per device row). "
+                             "Even device counts only")
     parser.add_argument("--score_chunk", type=int, default=8,
                         help="Glow priors only: evaluate grad-through-flow "
                              "scores over this many frames at a time "
                              "(lax.map). The full-batch VJP stores ~18 GiB "
                              "of coupling-net activations at the "
-                             "512-filter/28-frame production scale — over "
-                             "a v5e chip's HBM (measured, "
-                             "benchmarks/probe_glow_sep_memory.py). 0 = "
+                             "512-filter/28-frame production scale "
+                             "(benchmarks/probe_glow_sep_memory.py). 0 = "
                              "whole batch at once. No-op for NCSN priors "
                              "(direct score nets, no input-grad residuals)")
     parser.add_argument("--n_mixed", type=int, default=30)

@@ -19,18 +19,8 @@ class TestBenchSmoke:
         out = json.loads(line)
         assert out["metric"] == "basis_separation_1min_mix_wallclock"
         assert out["value"] > 0 and out["vs_baseline"] > 0
-
-    def test_project_v5e8_tiny(self, capsys, monkeypatch):
-        sys.path.insert(0, ".")
-        from benchmarks import project_v5e8 as pv
-        monkeypatch.setattr(pv, "T", 1)
-        monkeypatch.setattr(pv, "NUM_CLASSES", 2)
-        monkeypatch.setattr(pv, "N_FILTERS", 4)
-        pv.main()
-        line = capsys.readouterr().out.strip().splitlines()[-1]
-        out = json.loads(line)
-        assert out["metric"] == "basis_separation_1min_mix_v5e8_projection"
-        assert out["per_chip_frames"] == 4 and out["value"] > 0
+        assert out["device"] == {"platform": "cpu", "kind": "cpu",
+                                 "count": 8}
 
     def test_profile_v2_dispatch_tiny(self, capsys, monkeypatch):
         sys.path.insert(0, ".")
@@ -44,18 +34,6 @@ class TestBenchSmoke:
         out = json.loads(line)
         assert out["metric"] == "ncsnv2_L200_T8_anneal"
         assert out["per_level_s"] > 0 and out["fused_s"] > 0
-
-    def test_project_source_sharded_tiny(self, capsys, monkeypatch):
-        sys.path.insert(0, ".")
-        from benchmarks import project_source_sharded as pss
-        monkeypatch.setattr(pss, "T", 1)
-        monkeypatch.setattr(pss, "NUM_CLASSES", 2)
-        monkeypatch.setattr(pss, "N_FILTERS", 4)
-        pss.main()
-        line = capsys.readouterr().out.strip().splitlines()[-1]
-        out = json.loads(line)
-        assert out["metric"] == "basis_sep_source_sharded_v5e8_projection"
-        assert out["frames_per_chip"] == 8 and out["value"] > 0
 
     def test_quality_flowpp_digits_tiny(self, capsys, monkeypatch,
                                         tmp_path):
@@ -93,10 +71,17 @@ class TestBenchSmoke:
         orig = bib.N_FILTERS, bib.NUM_CLASSES
         try:
             bib.N_FILTERS, bib.NUM_CLASSES = 4, 2
-            first, best = bib.time_variant(False, 2, 1, None)
+            first, best = bib.time_variant(2, 1, None)
             assert first > 0 and best > 0
         finally:
             bib.N_FILTERS, bib.NUM_CLASSES = orig
+
+    def test_profile_conv_tiny(self, capsys):
+        sys.path.insert(0, ".")
+        from benchmarks import profile_conv as pc
+        pc.main(classes=(("tiny", 2, 8, 8, 4, 8),), short=1, long=3)
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["class"] == "tiny" and out["device"]["platform"] == "cpu"
 
     def test_graft_entry(self):
         sys.path.insert(0, ".")

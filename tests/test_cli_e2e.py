@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-from audiosourcesep_tpu.data import write_wav
+from audiosourcesep_tpu.data import write_song
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,18 +36,7 @@ def run_cli(script, *args, cwd=None):
 @pytest.fixture(scope="module")
 def song_dir(tmp_path_factory):
     """Synthetic 10 s piano/violin/mix wavs at 16 kHz."""
-    d = tmp_path_factory.mktemp("song")
-    sr, dur = 16000, 10.0
-    t = np.arange(int(sr * dur)) / sr
-    piano = 0.4 * np.sin(2 * np.pi * 220.0 * t) * (1 + 0.3 * np.sin(
-        2 * np.pi * 2.0 * t))
-    violin = 0.4 * np.sin(2 * np.pi * 554.4 * t + 3 * np.sin(
-        2 * np.pi * 5.0 * t))
-    mix = 0.5 * (piano + violin)
-    write_wav(str(d / "piano.wav"), piano.astype(np.float32), sr)
-    write_wav(str(d / "violin.wav"), violin.astype(np.float32), sr)
-    write_wav(str(d / "mix.wav"), mix.astype(np.float32), sr)
-    return str(d)
+    return write_song(str(tmp_path_factory.mktemp("song")), 10.0)
 
 
 @pytest.fixture(scope="module")
@@ -263,31 +252,3 @@ class TestRemainingCLIs:
         assert "Max Euclidean Distance" in text
         val = float(text.split("=")[-1])
         assert 0 < val < 100
-
-
-class TestGlowChainDriver:
-    def test_inproc_chain_tiny(self, tmp_path_factory, dataset_dir):
-        """One-process chain driver (benchmarks/run_glow_chain_inproc.py):
-        base Glow -> noisy sigma chain -> Glow-prior BASIS chained via runpy
-        in a single process (the per-process TPU warm-up amortisation)."""
-        r = str(tmp_path_factory.mktemp("chain"))
-        import shutil
-        for inst in ("piano", "violin"):
-            shutil.copytree(dataset_dir, os.path.join(r, f"{inst}_ds"))
-        env = dict(os.environ)
-        env["JAX_PLATFORMS"] = "cpu"
-        env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-        env["ASR_CHAIN_TINY"] = "1"
-        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-        result = subprocess.run(
-            [sys.executable,
-             os.path.join(REPO, "benchmarks", "run_glow_chain_inproc.py"),
-             r, "1", "1"],
-            capture_output=True, text=True, cwd=REPO, timeout=1200, env=env)
-        assert result.returncode == 0, (
-            f"chain driver failed:\nSTDOUT:\n{result.stdout[-3000:]}\n"
-            f"STDERR:\n{result.stderr[-3000:]}")
-        # all three TPU stages ran in THIS one process
-        assert result.stdout.count("===== STAGE DONE") >= 5
-        results = np.load(os.path.join(r, "basis", "results.npz"))
-        assert np.isfinite(results["x1"]).all()

@@ -284,6 +284,22 @@ class TestGetSongExtract:
                     expected.max() - 80.0, abs=1e-3)
 
 
+    def test_mixture_stft_is_complex_and_exact(self, tmp_path):
+        """The mixture STFT comes back as one complex array, equal to the
+        STFT of the mix windows (no real/imag split on the way)."""
+        from audiosourcesep_tpu.data import get_song_extract, write_song
+        from audiosourcesep_tpu.ops import stft
+        song = write_song(str(tmp_path), 10.0, seed=3)
+        _, raw, stft_mix = get_song_extract(
+            *(os.path.join(song, f"{n}.wav") for n in
+              ("mix", "piano", "violin")), 2 * 2.04)
+        assert isinstance(stft_mix, np.ndarray)
+        assert stft_mix.dtype == np.complex64 and stft_mix.shape[0] == 2
+        windows = raw[0].reshape(2, -1)
+        np.testing.assert_array_equal(stft_mix, np.asarray(stft(windows)))
+        assert np.abs(stft_mix.imag).max() > 0
+
+
 class TestCorruptionDetection:
     def test_bad_crc_raises(self, tmp_path):
         p = str(tmp_path / "c.tfrecord")

@@ -1,7 +1,7 @@
 """Multi-host data-parallel training: a real 2-process jax.distributed
 cluster on CPU (2 virtual devices per process -> 4 global devices).
 
-Validates the TPU-pod story end to end through the actual CLI: cluster
+Validates the multi-process story end to end through the actual CLI: cluster
 formation (``--multihost``), per-host dataset sharding, global-batch
 assembly (``put_global_batch``), replicated-state training steps with
 XLA-inserted gradient psum across processes, and process-0-only checkpoint

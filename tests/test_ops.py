@@ -189,3 +189,41 @@ class TestInversion:
         est = phase_reuse(mag, mix)
         np.testing.assert_allclose(np.abs(np.asarray(est)), np.asarray(mag),
                                    rtol=1e-4)
+
+
+class TestInversionCLI:
+    def test_runs_on_the_default_device(self, tmp_path, monkeypatch):
+        """melspec_inversion_basis.py leaves the platform alone and hands
+        the complex mixture STFT to the default device as one array."""
+        import argparse
+        import sys
+        sys.path.insert(0, ".")
+        import melspec_inversion_basis as inv
+
+        rng = np.random.RandomState(0)
+        mel = rng.uniform(-80, 0, (1, 96, 64)).astype(np.float32)
+        stft_mix = (rng.randn(1, 1025, 64)
+                    + 1j * rng.randn(1, 1025, 64)).astype(np.complex64)
+        np.savez(tmp_path / "results.npz", x1=mel, x2=mel, gt1=mel,
+                 gt2=mel, mixed=mel, stft_mixture=stft_mix)
+        seen = []
+        real = inv.invert_melspec_reuse_phase
+
+        def spy(mels, stft_mixture, **kw):
+            seen.append(stft_mixture)
+            return real(mels, stft_mixture, **kw)
+
+        monkeypatch.setattr(inv, "invert_melspec_reuse_phase", spy)
+        monkeypatch.chdir(tmp_path)
+        platforms = jax.config.jax_platforms
+        inv.main(argparse.Namespace(
+            basis_results=str(tmp_path), output=None,
+            algorithm="reuse_phase", method="frame", scale="dB",
+            wiener_filter=True, debug=True, seed=0))
+        assert jax.config.jax_platforms == platforms
+        assert seen and all(isinstance(a, jax.Array) for a in seen)
+        assert all(a.dtype == jnp.complex64 for a in seen)
+        assert all(a.devices() == {jax.devices()[0]} for a in seen)
+        out = np.load(tmp_path / "inverse_reuse_phase_frame_wiener_filter"
+                      / "inverse_spectrograms.npz")
+        assert np.isfinite(out["x1_audio"]).all()

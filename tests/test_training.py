@@ -272,6 +272,42 @@ class TestMiscTrainUtils:
         img2 = plot_to_image(fig2)
         assert img2.shape[-1] == 4
 
+    def test_figure_summaries_are_noops_without_matplotlib(self,
+                                                         monkeypatch):
+        import sys
+        from audiosourcesep_tpu.training import (add_figure, image_grid,
+                                                 plot_to_image, pyplot)
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+        assert pyplot() is None
+        fig = image_grid(np.random.rand(4, 8, 8, 1), (8, 8, 1), "melspec")
+        assert fig is None and plot_to_image(fig) is None
+
+        class Writer:
+            def add_image(self, *a, **k):
+                raise AssertionError("no figure to write")
+
+        add_figure(Writer(), "tag", fig, 0)
+
+    def test_imports_without_yaml_matplotlib_pil(self):
+        """Every CLI imports the training package; it must not need the
+        optional plotting and YAML libraries."""
+        import subprocess
+        import sys
+        code = ("import sys\n"
+                "for m in ('yaml', 'matplotlib', 'matplotlib.pyplot', "
+                "'PIL', 'PIL.Image'):\n"
+                "    sys.modules[m] = None\n"
+                "import audiosourcesep_tpu.cli\n"
+                "import audiosourcesep_tpu.training as t\n"
+                "assert t.image_grid(__import__('numpy').zeros((1, 4, 4, 1)),"
+                " (4, 4, 1)) is None\n"
+                "print('ok')\n")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        r = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
     def test_per_batch_sigma_quirk(self):
         """per_sample_sigma=False reproduces the reference's one-sigma-per-
         batch behavior (train_ncsn.py:37)."""

@@ -3,10 +3,14 @@ parallel helpers."""
 
 import io
 import contextlib
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from audiosourcesep_tpu.parallel import (make_mesh_for_batch,
                                          pad_to_multiple)
@@ -74,37 +78,6 @@ class TestProfiling:
             x = jnp.ones(3) + 1
         assert float(x[0]) == 2.0
 
-    def test_fence_handles_pytrees_and_complex(self):
-        # fence must accept any output pytree, including complex leaves
-        # (complex device->host transfers are unsupported on the TPU
-        # backend; fence fetches the real part instead)
-        from audiosourcesep_tpu.utils.profiling import fence
-        tree = {"a": jnp.ones((2, 3)),
-                "b": jnp.ones(4) + 1j * jnp.ones(4),
-                "c": 3.0}
-        fence(tree)   # must not raise
-
-    def test_fence_touches_every_shard(self, monkeypatch):
-        """On a mesh-sharded output, fetching one element only waits for
-        the device that holds it; fence must fetch per shard so EVERY
-        device's stream is drained before timing code reads the clock."""
-        import jax.sharding as shd
-
-        from audiosourcesep_tpu.parallel import make_mesh
-        from audiosourcesep_tpu.utils import profiling
-
-        mesh = make_mesh()
-        n_dev = mesh.devices.size
-        x = jnp.arange(8 * 4.0).reshape(8, 4)
-        x = jax.device_put(x, shd.NamedSharding(
-            mesh, shd.PartitionSpec("data")))
-        fetched = []
-        real_get = jax.device_get
-        monkeypatch.setattr(profiling.jax, "device_get",
-                            lambda a: fetched.append(a) or real_get(a))
-        profiling.fence(x)
-        assert len(fetched) == n_dev
-
     def test_steady_state_harness(self):
         from audiosourcesep_tpu.utils.profiling import steady_state
         calls = []
@@ -137,6 +110,67 @@ class TestParallelHelpers:
 
     def test_mesh_for_batch_one(self):
         assert make_mesh_for_batch(1) is None
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(f for f in os.listdir(os.path.join(REPO, "configs"))
+                 if f.endswith(".yml"))
+
+
+class TestFlatConfig:
+    @pytest.mark.parametrize("name", CONFIGS)
+    def test_matches_yaml_safe_load(self, name):
+        yaml = pytest.importorskip("yaml")
+        from audiosourcesep_tpu.training import read_flat_config
+        path = os.path.join(REPO, "configs", name)
+        with open(path) as f:
+            expected = yaml.safe_load(f)
+        got = read_flat_config(path)
+        assert got == expected
+        assert {k: type(v) for k, v in got.items()} == \
+            {k: type(v) for k, v in expected.items()}
+
+    def test_rejects_nested_config(self, tmp_path):
+        from audiosourcesep_tpu.training import read_flat_config
+        cfg = tmp_path / "nested.yml"
+        cfg.write_text("model:\n  n_filters: 4\n")
+        with pytest.raises(ValueError, match="flat"):
+            read_flat_config(str(cfg))
+
+
+def _cache_dir_seen(cwd, **env_extra):
+    """jax's compilation cache dir after importing the package in a fresh
+    interpreter started in ``cwd``."""
+    env = dict(os.environ, PYTHONPATH=REPO, **env_extra)
+    if "JAX_COMPILATION_CACHE_DIR" not in env_extra:
+        env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    out = subprocess.run(
+        [sys.executable, "-c", "import audiosourcesep_tpu, jax; "
+         "print(jax.config.jax_compilation_cache_dir)"],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()[-1]
+
+
+class TestCompilationCache:
+    def test_env_dir_is_used_and_not_overridden(self, tmp_path):
+        want = str(tmp_path / "cache_from_env")
+        assert _cache_dir_seen(str(tmp_path),
+                               JAX_COMPILATION_CACHE_DIR=want) == want
+
+    def test_falls_back_to_fixed_dir_in_checkout(self, tmp_path):
+        want = os.path.join(REPO, ".jax_cache")
+        assert _cache_dir_seen(str(tmp_path)) == want
+        assert _cache_dir_seen(REPO) == want
+
+
+class TestMultihostArgs:
+    def test_coordinator_arguments_are_required(self):
+        from audiosourcesep_tpu.parallel import init_distributed
+        with pytest.raises(ValueError, match="coordinator_address"):
+            init_distributed(None, None, None)
+        with pytest.raises(ValueError, match="process_id"):
+            init_distributed("localhost:1234", 2, None)
 
 
 class TestCliHelpers:

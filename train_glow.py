@@ -17,8 +17,9 @@ from audiosourcesep_tpu.models import build_glow
 from audiosourcesep_tpu.parallel import (make_mesh_for_batch,
                                          put_global_batch, replicate)
 from audiosourcesep_tpu.training import (CheckpointManager, LoopConfig,
-                                         image_grid, init_train_state,
-                                         make_flow_train_step, plot_to_image,
+                                         add_figure, image_grid,
+                                         init_train_state,
+                                         make_flow_train_step,
                                          run_training, setup_optimizer,
                                          setup_tensorboard)
 from audiosourcesep_tpu.utils import total_trainable_variables
@@ -71,10 +72,9 @@ def main(args):
         samples = np.clip(samples, data["minval"], data["maxval"])
         np.save(os.path.join("generated_samples",
                              f"generated_samples_{epoch}"), samples)
-        fig = image_grid(samples, data["data_shape"], data["data_type"])
-        train_writer.add_image("32 generated samples",
-                               plot_to_image(fig), epoch,
-                               dataformats="HWC")
+        add_figure(train_writer, "32 generated samples",
+                   image_grid(samples, data["data_shape"], data["data_type"]),
+                   epoch)
 
     cli.print_params(args, train_writer)
     cfg = LoopConfig(

@@ -18,11 +18,12 @@ from audiosourcesep_tpu.models.ncsn import (anneal_langevin_dynamics,
                                             get_score_model, get_sigmas)
 from audiosourcesep_tpu.parallel import make_mesh_for_batch, replicate
 from audiosourcesep_tpu.training import (CheckpointManager, LoopConfig,
-                                         image_grid, init_train_state,
-                                         make_ncsn_train_step, plot_to_image,
-                                         run_training, setup_optimizer,
-                                         setup_tensorboard)
+                                         add_figure, image_grid,
+                                         init_train_state,
+                                         make_ncsn_train_step, run_training,
+                                         setup_optimizer, setup_tensorboard)
 from audiosourcesep_tpu.utils import total_trainable_variables
+from audiosourcesep_tpu.utils.profiling import peak_bytes_in_use
 
 
 def preprocess(X, minval, maxval, use_logit, alpha):
@@ -93,11 +94,9 @@ def main(args):
         np.save(os.path.join("generated_samples",
                              f"generated_samples_{epoch}"), samples)
         if np.isfinite(samples[-1]).all():
-            fig = image_grid(samples[-1], data["data_shape"],
-                             data["data_type"])
-            train_writer.add_image("32 generated samples",
-                                   plot_to_image(fig), epoch,
-                                   dataformats="HWC")
+            add_figure(train_writer, "32 generated samples",
+                       image_grid(samples[-1], data["data_shape"],
+                                  data["data_type"]), epoch)
         else:
             train_writer.add_text(
                 "display error",
@@ -114,6 +113,7 @@ def main(args):
                           test_writer=test_writer, mesh=mesh)
     print(f"Training time: {result.training_time:.1f}s; "
           f"saved at {result.save_path}")
+    print(f"peak_bytes_in_use: {peak_bytes_in_use()}")
     if getattr(args, "multihost", False):
         # orderly multi-process teardown: a process exiting while peers are
         # still running trips the coordination-service heartbeat
